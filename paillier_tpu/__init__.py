@@ -1,8 +1,8 @@
-"""paillier_tpu — a TPU-native Paillier / Damgard-Jurik homomorphic
-encryption framework (JAX / Pallas / shard_map).
+"""paillier_tpu — a batched Paillier / Damgard-Jurik homomorphic
+encryption framework in JAX (jit / shard_map).
 
 Capability-equivalent to the Go reference library (sachaservan/paillier)
-but redesigned TPU-first: all hot modular arithmetic runs as batched
+but redesigned for accelerators: all hot modular arithmetic runs as batched
 limb-vector kernels on device, with the ciphertext batch as the SIMD axis
 and jax.sharding meshes for multi-chip scale-out.
 

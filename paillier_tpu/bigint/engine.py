@@ -10,10 +10,10 @@ agnostic:
     mont_mul(x, y) : Montgomery product x*y*M^-1 (for product trees)
     spec.M / spec.encode : CRT scale and host-side residue encoding
 
-Selection: ``rns2`` (int8-MXU fused Pallas kernel; bigint/rns2.py) is the
-default everywhere — it is both the TPU fast path and a plain jnp program
-on CPU.  ``rns`` (bf16 Cox-Rower, bigint/rns.py) is kept as the v1
-fallback behind PAILLIER_TPU_ENGINE=rns.  The limb-Montgomery path
+Selection: ``rns2`` (int8 Cox-Rower; bigint/rns2.py) is the default
+everywhere — the same XLA program on every backend.  ``rns`` (bf16
+Cox-Rower, bigint/rns.py) is kept as the v1 fallback behind
+PAILLIER_TPU_ENGINE=rns.  The limb-Montgomery path
 (bigint/montgomery.py) is selected by the callers directly for small
 moduli where RNS setup cost dominates.
 """

@@ -34,8 +34,8 @@ def _native():
 
 # Limb parameters for the device representation: little-endian base-2^16
 # digits stored in uint32 lanes.  16-bit limbs keep products of two limbs
-# exact in uint32 (max (2^16-1)^2 < 2^32), which is the widest exact
-# integer multiply the TPU VPU provides.
+# exact in uint32 (max (2^16-1)^2 < 2^32), the widest exact integer
+# multiply that elementwise uint32 arithmetic provides.
 LIMB_BITS = 16
 LIMB_BASE = 1 << LIMB_BITS
 LIMB_MASK = LIMB_BASE - 1

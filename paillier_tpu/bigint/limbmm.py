@@ -1,4 +1,4 @@
-"""Limb-domain big-int ops as int8 matmuls (the MXU Toeplitz toolkit).
+"""Limb-domain big-int ops as int8 matmuls (the Toeplitz toolkit).
 
 The scan-based limb kernels in :mod:`vpu` cost O(L) sequential steps per
 multiply — tens of milliseconds at 4096-bit widths.  But every limb-domain
@@ -23,7 +23,7 @@ with carry routing into the next limb and normalized once.
 
 Replaces gmp.Mul/Mod on decryption's L-function and CRT recombination
 (reference: paillier.go:296-340, 437-440 — the reference does these with
-full gmp arithmetic; here they ride the MXU).
+full gmp arithmetic; here they are int8 matmuls).
 """
 
 from __future__ import annotations

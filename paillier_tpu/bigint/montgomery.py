@@ -2,7 +2,7 @@
 
 Replaces the reference's ``gmp.Int.Exp`` hot path (reference:
 paillier.go:213-216, 296; thresholdkey.go:195-199; ddleq.go:81-87) with a
-TPU-first design: residues live as radix-2^16 limb vectors on device,
+batched design: residues live as radix-2^16 limb vectors on device,
 reduction is Montgomery (all Paillier moduli N^s are odd), and
 exponentiation is a fixed-window ladder expressed as ``lax.scan`` over the
 exponent digits so the whole modexp compiles to a single fused loop.
@@ -180,46 +180,16 @@ def _build_table(ctx: MontCtx, bm: jnp.ndarray, window: int) -> jnp.ndarray:
     return jnp.stack(entries, axis=0)
 
 
-def _use_pallas() -> bool:
-    """Fused Pallas kernels on real accelerators; jnp ladder on CPU."""
-    return jax.default_backend() != "cpu"
-
-
+@partial(jax.jit, static_argnames=('window',))
 def mont_pow_digits(ctx: MontCtx, base: jnp.ndarray, digits: jnp.ndarray,
                     window: int = 4) -> jnp.ndarray:
     """base^e mod n with e given as MSB-first base-2^w digits.
 
     ``digits`` is int32 of shape [D] (exponent shared across the batch) or
     [..., D] matching base's batch shape (per-element exponents).  Base is
-    a normal (non-Montgomery) residue < n; result likewise.
-
-    On TPU this dispatches to the fused Pallas kernel (state stays in
-    VMEM across the whole ladder); the jnp scan path remains the CPU /
-    fallback implementation.
+    a normal (non-Montgomery) residue < n; result likewise.  The ladder is
+    a lax.scan over the digits.
     """
-    if _use_pallas():
-        from .pallas_kernels import mont_pow_pallas
-        squeeze = base.ndim == 1
-        b2 = base[None] if squeeze else base
-        batch_shape = b2.shape[:-1]
-        L = b2.shape[-1]
-        flat = b2.reshape((-1, L))
-        if digits.ndim > 1:
-            dflat = jnp.broadcast_to(
-                digits, batch_shape + (digits.shape[-1],)
-            ).reshape((-1, digits.shape[-1]))
-        else:
-            dflat = digits
-        out = mont_pow_pallas(ctx, flat, dflat, window)
-        out = out.reshape(batch_shape + (L,))
-        return out[0] if squeeze else out
-    return _mont_pow_digits_jnp(ctx, base, digits, window)
-
-
-@partial(jax.jit, static_argnames=('window',))
-def _mont_pow_digits_jnp(ctx: MontCtx, base: jnp.ndarray, digits: jnp.ndarray,
-                         window: int = 4) -> jnp.ndarray:
-    """Pure-jnp ladder (lax.scan over digits)."""
     per_element = digits.ndim > 1
     bm = to_mont(ctx, base)
     tbl = _build_table(ctx, bm, window)   # [2^w, ..., L]
@@ -258,20 +228,10 @@ def mont_pow(ctx: MontCtx, base: jnp.ndarray, e: int, window: int = 4
         ctx, base, jnp.asarray(exp_digits(e, window, nd)), window)
 
 
-def mont_pow_fixed_base(ctx: MontCtx, base_1d: jnp.ndarray,
-                        digits: jnp.ndarray, window: int = 4) -> jnp.ndarray:
-    """Dispatcher: shared-base power with per-element exponents."""
-    if _use_pallas():
-        batch_shape = digits.shape[:-1]
-        base = jnp.broadcast_to(base_1d, batch_shape + (ctx.n_limbs,))
-        return mont_pow_digits(ctx, base, digits, window)
-    return _mont_pow_fixed_base_jnp(ctx, base_1d, digits, window)
-
-
 @partial(jax.jit, static_argnames=('window',))
-def _mont_pow_fixed_base_jnp(ctx: MontCtx, base_1d: jnp.ndarray,
-                             digits: jnp.ndarray, window: int = 4
-                             ) -> jnp.ndarray:
+def mont_pow_fixed_base(ctx: MontCtx, base_1d: jnp.ndarray,
+                        digits: jnp.ndarray, window: int = 4
+                        ) -> jnp.ndarray:
     """base^e_b mod n for a batch-shared base and per-element exponents.
 
     ``base_1d`` is a single residue [L]; ``digits`` is int32[..., D]

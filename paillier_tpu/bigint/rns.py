@@ -1,14 +1,14 @@
-"""RNS (residue number system) Montgomery arithmetic — the MXU engine.
+"""RNS (residue number system) Montgomery arithmetic — the v1 engine.
 
-The limb-vector kernels (pallas_kernels.py) are VPU-bound: schoolbook
-multiplication costs O(L^2) serial vector ops per modmul.  This module
-replaces them on the hot paths with the Cox-Rower / Bajard-Imbert RNS
-design used by hardware RSA engines, mapped onto TPU units:
+The limb-vector ladders (montgomery.py) cost O(L^2) serial elementwise
+ops per modmul (schoolbook multiplication).  This module replaces them
+with the Cox-Rower / Bajard-Imbert RNS design used by hardware RSA
+engines, mapped onto matrix units:
 
 * Numbers live as residues modulo ~300 14-bit prime channels per base
   (two bases B1, B2 + one redundant channel).  A modular multiplication
-  is O(channels) *pointwise* work (VPU) plus two *base extensions* —
-  matrix products against fixed CRT matrices — which run on the MXU as
+  is O(channels) *pointwise* work plus two *base extensions* —
+  matrix products against fixed CRT matrices — which run as
   exact bf16 x bf16 -> f32 matmuls (7-bit operand chunks keep every
   product and partial sum exactly representable).
 * Per-channel products use channel-level Montgomery with R = 2^16 so all

@@ -1,12 +1,12 @@
-"""Batched fixed-limb big-integer arithmetic on the TPU VPU (pure jnp).
+"""Batched fixed-limb big-integer arithmetic as elementwise jnp ops.
 
 This is the data-plane replacement for the reference's libgmp binding
 (reference: github.com/ncw/gmp, imported at paillier.go:10) — redesigned
-TPU-first instead of translated:
+for batched devices instead of translated:
 
 * Integers are little-endian radix-2^16 limb vectors in ``uint32`` lanes,
   shape ``(batch, n_limbs)``.  16-bit limbs keep limb products exact in
-  uint32 (the widest exact integer multiply the VPU has) and column sums
+  uint32 (the widest exact elementwise integer multiply) and column sums
   of thousands of partial products still fit without overflow.
 * The batch axis is the SIMD axis: every op is elementwise across lanes.
 * Carry propagation is log-depth via ``lax.associative_scan`` (generate/

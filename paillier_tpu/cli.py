@@ -86,7 +86,7 @@ def _ddleq(args):
 
 def main(argv=None):
     p = argparse.ArgumentParser(prog="paillier_tpu",
-                                description="TPU-native Paillier demo")
+                                description="batched Paillier demo")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--cpu", action="store_true",
                    help="force the CPU backend (fast for small demos)")

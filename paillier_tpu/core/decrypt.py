@@ -115,7 +115,7 @@ class _CrtConsts:
 
 
 class _CrtMmPlans:
-    """limbmm plans for the MXU CRT decryption path (one per secret key).
+    """limbmm plans for the int8-matmul CRT decryption path (one per secret key).
 
     Every limb-domain multiply in CRT decryption has a constant operand,
     so each becomes one int8 Toeplitz matmul (+ small Barrett where a
@@ -152,7 +152,7 @@ class _CrtMmPlans:
 def crt_decrypt_kernel_mm(dk: DeviceKey, c: jnp.ndarray, pl: "_CrtMmPlans",
                           eng_p, eng_q, ep_exp: int, eq_exp: int,
                           window: int = 4) -> jnp.ndarray:
-    """MXU CRT decryption: every limb multiply is a Toeplitz matmul and
+    """int8-matmul CRT decryption: every limb multiply is a Toeplitz matmul and
     both half-width modexps run on the fused RNS sliding-window kernel
     (shared exponents p-1 / q-1)."""
     from ..bigint import limbmm as lm
@@ -194,7 +194,7 @@ def crt_decrypt_kernel(dk: DeviceKey, c: jnp.ndarray,
     """m = CRT(m_p, m_q) with m_p = L_p(c^{p-1} mod p^2) h_p mod p.
 
     ``rns_halves``: optional ((eng_p, conv_p), (eng_q, conv_q)) — when
-    given, the two half-width modexps run on RNS engines (MXU path).
+    given, the two half-width modexps run on RNS engines.
     """
     L = dk.L
     Lh = ctx_p2.n_limbs    # = L (p^2 has ~n bits)
@@ -268,7 +268,7 @@ class Decryptor:
             ep = jnp.asarray(mont.exp_digits(p - 1, window, nd))
             eq = jnp.asarray(mont.exp_digits(q - 1, window, nd))
             if self.dk.use_rns() and engine != "limb":
-                # MXU path: limbmm Toeplitz matmuls + fused RNS modexps
+                # limbmm Toeplitz matmuls + RNS modexps
                 from ..bigint.engine import make_engine
                 plans = _CrtMmPlans(sk, cc, 2 * L)
                 eng_p = make_engine(cc.p2, plans.Lh)

@@ -4,7 +4,7 @@ Regular encryption:      c = G^m * r^(n^s)    mod n^(s+1)   (G = n+1)
 Alternative encryption:  c = G^m * h_s^r      mod n^(s+1),  r < K
 Nested encryption:       Enc_2(Enc_1(m).c)
 
-TPU-first design choices:
+Design choices:
 * G^m uses the binomial identity (1+n)^m = 1 + m n (+ C(m,2) n^2) mod
   n^(s+1) — two limb multiplies instead of a full modexp.  The reference
   does the full modexp (paillier.go:213); outputs are bit-identical.
@@ -43,7 +43,7 @@ def gm_binomial(dk: DeviceKey, m: jnp.ndarray, level: int) -> jnp.ndarray:
     L = dk.L
     if level == LEVEL_ONE:
         # m: [..., L] < n ; c = 1 + m*n at width 2L.  On accelerators the
-        # constant-operand multiply rides the MXU as a Toeplitz matmul
+        # constant-operand multiply is an int8 Toeplitz matmul
         # (limbmm) instead of the O(L)-step vpu scan.
         if dk.use_rns():
             from ..bigint.limbmm import const_mul
@@ -89,7 +89,7 @@ def encrypt_with_r_kernel(dk: DeviceKey, m: jnp.ndarray, r: jnp.ndarray,
 def encrypt_with_r_rns_kernel(dk: DeviceKey, eng, m: jnp.ndarray,
                               r: jnp.ndarray, level: int, ns_exp: int,
                               window: int = 4) -> jnp.ndarray:
-    """RNS fast path: r^(n^s) runs in the Cox-Rower engine (MXU base
+    """RNS fast path: r^(n^s) runs in the Cox-Rower engine (int8 base
     extensions) via the sliding-window shared-exponent ladder; G^m via
     the limb binomial shortcut; outputs are bit-identical to the limb
     path."""
@@ -102,7 +102,7 @@ def encrypt_with_r_rns_kernel(dk: DeviceKey, eng, m: jnp.ndarray,
 def encrypt_with_r_rns_fused_kernel(dk: DeviceKey, eng, nrow: jnp.ndarray,
                                     m: jnp.ndarray, r: jnp.ndarray,
                                     ns_exp: int) -> jnp.ndarray:
-    """Level-1 RNS fast path with G^m fused into the ladder (r5).
+    """Level-1 RNS fast path with G^m fused into the ladder.
 
     G^m = 1 + m*n is computed directly in residue space (one
     multiply-add + reduction per channel; rns2.rns2_one_plus_mul) and
@@ -265,7 +265,7 @@ def nested_encrypt(pk: PublicKey, ms: Sequence[int], rng=None,
 
     The inner level-1 ciphertext limbs ([..., 2L], values < n^2) are
     exactly the level-2 plaintext width, so they feed the level-2 kernel
-    directly — no host decode/re-encode round-trip (r2 VERDICT #6)."""
+    directly — no host decode/re-encode round-trip."""
     e1 = Encryptor(pk, LEVEL_ONE, REGULAR, window, rng)
     e2 = Encryptor(pk, LEVEL_TWO, REGULAR, window, rng)
     inner = e1.encrypt(list(ms))

@@ -7,7 +7,7 @@ and H = a random quadratic-residue generator mod N.
 The prime search runs on host (control plane).  For large keys the
 Miller-Rabin witnesses can be batched on device — see
 :func:`device_batched_prime` which sieves candidates on host and runs one
-batched Fermat/Miller-Rabin modexp kernel per round (the TPU-idiomatic
+batched Fermat/Miller-Rabin modexp kernel per round (the batched
 version of the reference's goroutine concurrencyLevel,
 safe_prime.go:61-105).
 """
@@ -33,7 +33,7 @@ def keygen(secparam: int, rng=None,
     Fermat kernel (:func:`device_batched_prime`).  Default (None): auto —
     used for production key sizes (>= 2048 bits) when the native GMP
     runtime is unavailable, so large-key generation still gets batch
-    parallelism (the TPU analogue of the reference's goroutine race,
+    parallelism (the batched analogue of the reference's goroutine race,
     safe_prime.go:61-105)."""
     if secparam % 2 != 0:
         raise ValueError("keygen: secparam must be divisible by 2")

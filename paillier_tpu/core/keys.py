@@ -154,20 +154,19 @@ class DeviceKey:
 
         Resolution: config.force_rns() (the PAILLIER_TPU_FORCE_RNS=1 env
         override or Config.force_rns) pins the answer; otherwise auto —
-        accelerator backend and key >= 1024 bits.  Forcing RNS on CPU
-        runs the same math through the jnp fallback, which is how tests
-        cover the accelerator code paths."""
-        import jax
-
+        a non-CPU device and key >= 1024 bits.  This is the library's one
+        backend decision: every ladder is the same XLA program on every
+        backend, so forcing RNS on CPU runs the accelerator path's math,
+        which is how tests cover it."""
         from ..config import force_rns
         forced = force_rns()
         if forced is not None:
             return forced
-        return jax.default_backend() != "cpu" and self.pk.bits >= 1024
+        return jax.devices()[0].platform != "cpu" and self.pk.bits >= 1024
 
     def pow(self, level: int, base, digits, window: int = 4):
-        """Engine-aware modexp mod n^(s+1): RNS (MXU) on accelerators for
-        large keys, limb Montgomery (Pallas/jnp) otherwise.
+        """Engine-aware modexp mod n^(s+1): RNS on accelerators for
+        large keys, limb Montgomery otherwise.
 
         ``digits``: [D] shared or [..., D] per-element, MSB-first
         base-2^window.  Eager entry point (dispatch happens outside jit).
@@ -204,7 +203,7 @@ class DeviceKey:
 
         Built under ensure_compile_time_eval: the first call may come
         from inside a jit trace, and caching trace-local tracers leaks
-        them into every later trace (bit us on hardware in r4 smoke)."""
+        them into every later trace."""
         if "constmul_n" not in self.jit_cache:
             from ..bigint.limbmm import ConstMulPlan
             with jax.ensure_compile_time_eval():

@@ -2,7 +2,7 @@
 
 The reference does all big-integer math through libgmp via CGo
 (reference: paillier.go:10 imports github.com/ncw/gmp).  Here the batched
-data plane runs on TPU, and this module is the native *control plane*:
+data plane runs on the device, and this module is the native *control plane*:
 key-generation primality, safe-prime search (reference
 safe_prime.go:61-266), modular inverses and gcds.
 
@@ -258,7 +258,7 @@ def first_prime(cands: Sequence[int], *, safe: bool = False, reps: int = 20,
     reference safe_prime.go:208-278).  Deterministic: the result depends
     only on the candidate list, not on thread count or scheduling.  The
     caller supplies full-entropy candidates — this runtime never generates
-    key material (see ADVICE r1).
+    key material.
     """
     if not cands:
         return None

@@ -2,7 +2,7 @@
 //
 // The reference implementation does ALL of its big-integer arithmetic
 // through libgmp via CGo (github.com/ncw/gmp, imported at
-// reference paillier.go:10).  In the TPU framework the *data plane*
+// reference paillier.go:10).  In this framework the *data plane*
 // (batched encrypt/decrypt/proof math) lives on device, but the
 // *control plane* — key generation primality testing, safe-prime search
 // (reference safe_prime.go:61-266), modular inverses for Lagrange
@@ -69,7 +69,7 @@ static void import_be(mpz_t z, const uint8_t *buf, size_t len) {
 }
 
 // Returns 0 on success, -1 if z does not fit outlen bytes (out is zeroed;
-// never writes past the buffer — see ADVICE r1 on the old clamping code).
+// never writes past the buffer).
 static int export_be(uint8_t *out, size_t outlen, const mpz_t z) {
   std::memset(out, 0, outlen);
   if (__gmpz_cmp_ui(z, 0) == 0) return 0;
@@ -232,9 +232,7 @@ int pt_mulmod(const uint8_t *a, size_t al, const uint8_t *b, size_t bl,
 //
 // Each thread runs Montgomery's batch-inversion trick on a contiguous
 // chunk: ONE mpz_invert plus 3*(chunk-1) modular multiplies replaces
-// chunk mpz_inverts — ~8x fewer host cycles at 4096-bit moduli (r5;
-// the per-element loop held the threshold flow's host stage at ~110 ms
-// per 4096-batch).  If a chunk's total product is not invertible (some
+// chunk mpz_inverts.  If a chunk's total product is not invertible (some
 // element shares a factor with m), that chunk alone falls back to the
 // per-element path to identify and zero the bad entries.
 long pt_modinv_batch(const uint8_t *as, size_t n, size_t stride,

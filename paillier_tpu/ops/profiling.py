@@ -1,33 +1,25 @@
-"""Profiling and roofline accounting for the hot kernels.
+"""Profiling and roofline accounting for the hot ladders.
 
 The reference has no performance tooling at all (SURVEY section 5: only
-``testing.B`` harnesses).  This module provides the two pieces the
-TPU build needs to make perf numbers actionable:
+``testing.B`` harnesses).  This module provides:
 
 * :func:`trace` — context manager around ``jax.profiler`` writing a
   TensorBoard-loadable trace of whatever runs inside it.
+* :data:`PEAKS` / :func:`device_peaks` — published peak rates keyed by
+  ``device_kind``.  A device without a row is an error, never a default.
 * :class:`RooflineModel` — analytic speed-of-light accounting for the
-  RNS-v2 modular-exponentiation kernels (bigint/pallas_rns2.py), split
-  into MXU (int8 base-extension dots), VPU (elementwise reduction
-  passes) and HBM terms, so a measured throughput can be quoted as a
-  fraction of each bound.
+  RNS-v2 modular-exponentiation ladders (bigint/rns2.py), so a measured
+  throughput can be quoted as a share of each bound.
 
-The model's inventory of the fused kernel (per Montgomery multiply, per
-element, k channels per base; see rns2.rns2_mont_mul_pair):
+Per Montgomery multiply and element, with k channels per base (see
+rns2.rns2_mont_mul_pair):
 
-  MXU   2 merged int8 dots [B,2k]x[2k,2*pk] = 8k^2 MACs ideal; the
-        lo/hi chunk column groups sit at 128-aligned offsets with zero
-        gaps, so the issued cost is 2k * 2*ceil(k/128)*128 per
-        extension (identical MAC count to the old 4-dot split, fewer
-        MXU weight swaps).
-  VPU   ~37 effective elementwise passes over [B,k] int32/f32 (4
-        float-reciprocal reductions in sigma form, chunking, casts,
-        cox alpha fixup) plus one k-lane f32 reduction (the cox sum).
-        The count is calibrated from the r3 measured decomposition
-        (kernel minus dot-only knockout); Mosaic fuses multiple ALU
-        ops per VMEM round trip, so instruction counting overstates it.
-  HBM   zero per multiply — the whole ladder runs out of VMEM; kernel
-        I/O is 2*B*C int32 in + out per call.
+  int8  2 merged dots [B,2k]x[2k,2*pk] = 8k^2 MACs ideal; the lo/hi chunk
+        column groups sit at offsets 0 and pk = ceil(k/128)*128, so the
+        issued cost is 2k * 2*pk per extension.
+  bytes the ladder carry, [C=2k] int32, read and written once: 16k bytes.
+        An XLA program that keeps the carry in device memory between
+        multiplies moves at least this much.
 """
 
 from __future__ import annotations
@@ -37,51 +29,34 @@ from dataclasses import dataclass
 
 
 @dataclass(frozen=True)
-class ChipSpec:
-    """Peak rates for one accelerator core-pair (per chip)."""
+class DevicePeaks:
+    """Published peak rates of one device."""
 
     name: str
-    int8_tops: float          # MXU int8, tera-ops (MAC = 2 ops)
-    vpu_gops: float           # VPU elementwise int32/f32 giga-ops
-    hbm_gbps: float           # HBM bandwidth GB/s
-    vmem_mib: int
+    int8_tops: float          # dense int8 tensor-core tera-ops/s (MAC = 2)
+    hbm_gbps: float           # device-memory bandwidth, GB/s
+    source: str
 
 
-CHIPS = {
-    # v5e ("lite"): 197 bf16 TFLOPs -> 394 int8 TOPS; VPU 8x128 lanes x
-    # 4 ALUs x ~0.94 GHz; 16 GiB HBM @ 819 GB/s; 128 MiB VMEM.
-    "v5e": ChipSpec("v5e", int8_tops=394.0, vpu_gops=3850.0,
-                    hbm_gbps=819.0, vmem_mib=128),
-    "v5p": ChipSpec("v5p", int8_tops=918.0, vpu_gops=7700.0,
-                    hbm_gbps=2765.0, vmem_mib=128),
-    "v4": ChipSpec("v4", int8_tops=550.0, vpu_gops=3500.0,
-                   hbm_gbps=1228.0, vmem_mib=128),
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": DevicePeaks(
+        "H100 SXM", int8_tops=1979.0, hbm_gbps=3350.0,
+        source="NVIDIA H100 SXM data sheet: dense int8 (no sparsity), "
+               "HBM3 bandwidth, at the 700 W power limit"),
 }
 
-# Effective VPU passes per Montgomery multiply, calibrated r4 on v5e:
-# (~65ms kernel - ~43ms dot-issue) over 2373 mmuls x B=4096 = ~23
-# single-op [B, 384-lane] passes at the 3.85 T ops/s VPU rate (knockout
-# decomposition, scripts/perf_knockout.py: reds 8.6ms, alpha ~1ms,
-# products/chunk/pack/loop ~12ms).  r4 conclusion: MXU and VPU share
-# the issue stream — kernel time ~= MXU-issue + VPU-issue, so the
-# serial envelope IS the model; the "overlap envelope" is unreachable
-# and reported only as the hypothetical dots-only bound.
-VPU_PASSES_PER_MMUL = 23
 
-
-def detect_chip() -> ChipSpec:
-    import jax
-    kind = ""
+def device_peaks(kind: str | None = None) -> DevicePeaks:
+    """Peaks for ``kind`` (default: ``jax.devices()[0].device_kind``)."""
+    if kind is None:
+        import jax
+        kind = jax.devices()[0].device_kind
     try:
-        kind = jax.devices()[0].device_kind.lower()
-    except Exception:
-        pass
-    for key, spec in CHIPS.items():
-        if key in kind.replace(" ", ""):
-            return spec
-    if "v5 lite" in kind or "v5lite" in kind:
-        return CHIPS["v5e"]
-    return CHIPS["v5e"]
+        return PEAKS[kind]
+    except KeyError:
+        raise ValueError(
+            f"no published peaks for device kind {kind!r}; add a row to "
+            "paillier_tpu.ops.profiling.PEAKS") from None
 
 
 def sliding_mults(e_bits: int, window: int) -> int:
@@ -105,11 +80,11 @@ class RooflineModel:
     k: int                    # RNS channels per base (Rns2Spec.k)
     window: int = 6
     sliding: bool = True
-    chip: ChipSpec = None
+    peaks: DevicePeaks = None
 
     def __post_init__(self):
-        if self.chip is None:
-            self.chip = detect_chip()
+        if self.peaks is None:
+            self.peaks = device_peaks()
 
     @property
     def mults(self) -> int:
@@ -124,58 +99,52 @@ class RooflineModel:
 
     @property
     def macs_per_mult_padded(self) -> int:
-        """With the k-wide dot outputs padded to 128-lane tiles."""
+        """With the k-wide dot outputs padded to 128-column groups."""
         kp = -(-self.k // 128) * 128
         return 2 * (2 * self.k) * 2 * kp
 
-    def mxu_bound(self, padded: bool = True) -> float:
-        """Elements/sec at 100% MXU."""
+    @property
+    def bytes_per_mult(self) -> int:
+        """Carry traffic per element: [2k] int32 read + written."""
+        return 2 * (2 * self.k) * 4
+
+    def int8_bound(self, padded: bool = True) -> float:
+        """Elements/sec at 100% of the int8 tensor-core peak."""
         macs = (self.macs_per_mult_padded if padded else self.macs_per_mult)
-        ops = 2.0 * macs * self.mults
-        return self.chip.int8_tops * 1e12 / ops
+        return self.peaks.int8_tops * 1e12 / (2.0 * macs * self.mults)
 
-    def vpu_bound(self) -> float:
-        # VPU cost is vreg-quantized: a [B, k] pass occupies
-        # ceil(k/128)*128 lanes regardless of k (measured r4)
-        kp = -(-self.k // 128) * 128
-        ops = VPU_PASSES_PER_MMUL * kp * self.mults
-        return self.chip.vpu_gops * 1e9 / ops
+    def memory_bound(self) -> float:
+        """Elements/sec at 100% of device-memory bandwidth."""
+        return (self.peaks.hbm_gbps * 1e9
+                / (self.bytes_per_mult * self.mults))
 
-    def serial_bound(self) -> float:
-        """No MXU/VPU overlap at all (lower envelope)."""
-        return 1.0 / (1.0 / self.mxu_bound() + 1.0 / self.vpu_bound())
-
-    def overlap_bound(self) -> float:
-        """Perfect MXU/VPU overlap (upper envelope)."""
-        return min(self.mxu_bound(), self.vpu_bound())
+    def bound(self) -> float:
+        """The roofline: the lower of the two bounds."""
+        return min(self.int8_bound(), self.memory_bound())
 
     def report(self, measured: float | None = None) -> str:
+        which = ("int8" if self.int8_bound() <= self.memory_bound()
+                 else "memory")
         lines = [
-            f"roofline {self.chip.name}: mod={self.mod_bits}b "
+            f"roofline {self.peaks.name}: mod={self.mod_bits}b "
             f"exp={self.exp_bits}b k={self.k} "
             f"{'sliding' if self.sliding else 'fixed'}-w{self.window} "
             f"({self.mults} mmuls, {self.macs_per_mult_padded} padded "
-            "MACs/mmul)",
-            f"  MXU speed-of-light : {self.mxu_bound():>12,.0f} elem/s "
-            f"(ideal, unpadded: {self.mxu_bound(False):,.0f})",
-            f"  VPU speed-of-light : {self.vpu_bound():>12,.0f} elem/s "
-            f"({VPU_PASSES_PER_MMUL} passes/mmul)",
-            f"  serial envelope    : {self.serial_bound():>12,.0f} elem/s"
-            "  <- the model (issue-bound, r4)",
-            f"  dots-only bound    : {self.overlap_bound():>12,.0f} elem/s"
-            "  (hypothetical: VPU free)",
+            f"MACs/mmul, {self.bytes_per_mult} B/mmul)",
+            f"  int8 speed-of-light   : {self.int8_bound():>12,.0f} elem/s "
+            f"(unpadded: {self.int8_bound(False):,.0f})",
+            f"  memory speed-of-light : {self.memory_bound():>12,.0f} elem/s",
+            f"  roofline ({which}-bound): {self.bound():>11,.0f} elem/s",
         ]
         if measured:
             lines.append(
-                f"  measured           : {measured:>12,.0f} elem/s = "
-                f"{measured / self.mxu_bound():.0%} of MXU SoL, "
-                f"{measured / self.serial_bound():.0%} of serial "
-                "envelope")
+                f"  measured              : {measured:>12,.0f} elem/s = "
+                f"{measured / self.bound():.1%} of the roofline")
         return "\n".join(lines)
 
 
 def encryption_roofline(pk_bits: int = 2048, window: int = 6,
-                        chip: ChipSpec | None = None) -> RooflineModel:
+                        peaks: DevicePeaks | None = None) -> RooflineModel:
     """Roofline for regular encryption's r^(n^s) ladder at level 1:
     exponent n (pk_bits), modulus n^2 (2*pk_bits)."""
     from ..bigint.rns2 import Rns2Spec
@@ -184,7 +153,7 @@ def encryption_roofline(pk_bits: int = 2048, window: int = 6,
     probe = (1 << (2 * pk_bits - 1)) | 1
     k = Rns2Spec(probe).k
     return RooflineModel(mod_bits=2 * pk_bits, exp_bits=pk_bits, k=k,
-                         window=window, sliding=True, chip=chip)
+                         window=window, sliding=True, peaks=peaks)
 
 
 @contextlib.contextmanager

@@ -7,8 +7,9 @@ distribution inventory"):
   kernels are elementwise over batch, so encryption/decryption/homomorphic
   ops need no collectives at all.
 * server axis -> threshold decryption servers: partial decryptions
-  combine via a modular-product all-reduce over ICI (the distributed seam
-  the reference leaves implicit at thresholdkey.go:149-161).
+  combine via a modular-product all-reduce over the device interconnect
+  (the distributed seam the reference leaves implicit at
+  thresholdkey.go:149-161).
 
 No NCCL/MPI translation: collectives are XLA collectives inside
 ``shard_map`` over a ``jax.sharding.Mesh``.

@@ -69,12 +69,11 @@ def partial_decrypt_all(tsks: Sequence[ThresholdSecretKey], ct: Ciphertext,
                         window: int = 4) -> List[PartialDecryptionBatch]:
     """All t servers' partial decryptions in ONE device dispatch.
 
-    The reference (and r4's bench) ran one full-width modexp dispatch
-    per server (thresholdkey.go:192-201); here the t shared-exponent
-    sliding ladders run back-to-back inside a single jit with the
-    ciphertext's limb->residue conversion computed ONCE and shared —
-    no per-server dispatch round-trips, conversions or output syncs
-    (VERDICT r4 #3).  Returns one PartialDecryptionBatch per server,
+    The reference runs one full-width modexp per server
+    (thresholdkey.go:192-201); here the t shared-exponent sliding
+    ladders run back-to-back inside a single jit with the ciphertext's
+    limb->residue conversion computed ONCE and shared — no per-server
+    dispatches, conversions or output syncs.  Returns one PartialDecryptionBatch per server,
     bit-identical to t partial_decrypt calls."""
     dk = tsks[0].device()
     exps = tuple(2 * tsk.delta * tsk.share for tsk in tsks)
@@ -147,8 +146,7 @@ def lagrange_powers(tpk: ThresholdPublicKey, stacked_c: jnp.ndarray,
                     exps: Sequence[int], window: int = 4) -> jnp.ndarray:
     """c_s^(exps[s]) mod n^2 for every server row of [S, B, 2L] in ONE
     batched per-element ladder (the reference runs one modexp per share,
-    thresholdkey.go:119-124; r2 VERDICT #4 flagged the per-share
-    dispatch loop)."""
+    thresholdkey.go:119-124)."""
     dk = tpk.device()
     L = dk.L
     S, B = stacked_c.shape[:2]
@@ -169,10 +167,8 @@ def _combine_products(dk, powed: jnp.ndarray, sel) -> tuple:
     [S, B, 2L] -> two [B, 2L] limb tensors.
 
     On the RNS engine the S-way products run as residue multiplies
-    (one int8-MXU Montgomery multiply per tree node) instead of limb
-    Montgomery multiplies — r5 profiling measured the limb tree at
-    474 ms/4096-batch vs ~2 ms in residues (docs/results/r5_ablate.txt,
-    VERDICT r4 #3)."""
+    (one int8-matmul Montgomery multiply per tree node) instead of limb
+    Montgomery multiplies, whose O(L^2) limb steps dominate the tree."""
     L = dk.L
     if dk.use_rns():
         from ..bigint.rns2 import Rns2Engine
@@ -246,8 +242,7 @@ def combine(tpk: ThresholdPublicKey,
     neg_inv = encode_batch(inv_vals, 2 * L).reshape(neg.shape)
 
     # cprime, L-function and the final constant multiply in one jit
-    # (the limb-domain modmuls here measured 109 ms/4096-batch r5;
-    # cprime rides the RNS engine when available)
+    # (cprime rides the RNS engine when available)
     key = ("combine_tail", pos.shape)
     if key not in dk.jit_cache:
         from ..bigint.rns2 import Rns2Engine

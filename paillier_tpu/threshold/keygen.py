@@ -7,7 +7,7 @@ keys v_i = v^(delta * s_i) mod n^2.
 
 Control-plane steps (primes, polynomial, shares) run on host; the l
 verification-key modexps are batched on device with per-element exponent
-digits — the TPU replacement for the reference's sequential loop
+digits — the batched replacement for the reference's sequential loop
 (thresholdkey_generator.go:246-254).
 """
 
@@ -69,7 +69,7 @@ class ThresholdKeyGenerator:
 
         Caller-supplied primes are fully validated (structure AND
         primality): a bad fixture would otherwise yield a silently
-        insecure/incorrect threshold key (ADVICE r4)."""
+        insecure/incorrect threshold key."""
         from .safe_prime import is_safe_prime
         if p != 2 * p1 + 1 or q != 2 * q1 + 1:
             raise ValueError("primes must satisfy p = 2*p1+1, q = 2*q1+1")

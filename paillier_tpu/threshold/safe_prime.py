@@ -1,7 +1,7 @@
 """Safe (Sophie Germain) prime generation (reference: safe_prime.go:61-266).
 
 The reference races goroutines and cancels on the first winner.  The
-TPU-idiomatic equivalent is batch parallelism: draw a sieved batch of
+equivalent here is batch parallelism: draw a sieved batch of
 candidates, reject q == 1 (mod 3) (which forces 3 | 2q+1), then run the
 expensive primality tests — Miller-Rabin on q and a Pocklington/Fermat
 base-2 test on p = 2q+1 — taking the first survivor.  For large bit

@@ -7,9 +7,9 @@ c_i^2 (the reference exponentiates with a nil modulus at
 thresholdkey.go:241,248) — we compute those full-width products on device
 and hash their minimal big-endian bytes for bit parity.
 
-TPU-first batching (the reference loops per ciphertext): the whole
+Batching (the reference loops per ciphertext): the whole
 pipeline stays on device — the two modexps are batched ladders, the
-unreduced c^4/c_i^2 are full-width VPU limb products, and the
+unreduced c^4/c_i^2 are full-width limb products, and the
 Fiat-Shamir hashes run through the vectorized device SHA-256
 (ops/sha256.py), exactly like zk/ddleq.py does for DDLEQ challenges.
 The only host arithmetic is the per-element response z = r + e*delta*s

@@ -5,7 +5,7 @@ Proves ct2 = ct1^(a^n mod n^2) * b^(n^2) mod n^3 (the NestedRandomize
 relation) without revealing (a, b).  A proof is ``secpar`` independent
 Fiat-Shamir instances, each with soundness 1/2.
 
-TPU-first batching (the reference loops instances sequentially,
+Batching (the reference loops instances sequentially,
 ddleq.go:32-37): all (proof, instance) pairs form one flat batch axis
 and the whole pipeline stays on device —
 
@@ -144,10 +144,9 @@ class _CrtN3Plans:
     The prover knows p and q, so n^3 = p^3 * q^3 and every per-element
     modexp mod n^3 can run as TWO half-width ladders (mod p^3 and mod
     q^3) plus a Garner recombine.  Each half-width Montgomery multiply
-    costs ~(1/2)^2 of the full-width one in MXU MACs and halves the
+    costs ~(1/2)^2 of the full-width one in int8 MACs and halves the
     per-digit 2^w-way table select, so the pair costs ~1/2 of the
-    full-width ladder — the "identified next 25-30%" of PERF.md's r5
-    DDLEQ analysis, mirroring core/decrypt.py's level-1 CRT fast path
+    full-width ladder, mirroring core/decrypt.py's level-1 CRT fast path
     one level up.  The verifier has no factors and keeps the full-width
     path; proofs are bit-identical either way (same mathematical value).
 
@@ -372,15 +371,13 @@ def pipeline_prove_verify(sk: SecretKey, jobs, secpar: int,
                           verify_pk: PublicKey | None = None):
     """Prove+verify a stream of chunks with chunk i's HOST work (native
     inverses, digit packing, decode/encode) overlapped against chunk
-    i±1's device ladders (VERDICT r4 #2: the serial chunk loop held
-    DDLEQ to ~50% of its MXU bound with host Fiat-Shamir packing in
-    the timing path).
+    i±1's device ladders.
 
     ``jobs`` is an iterable of (ct1, ct2, a_list, b_list, rng) chunk
     tuples.  Two worker threads are enough: JAX dispatch is async, so
     while one thread blocks on a device readback or runs GMP inverses
     (which release the GIL), the other thread's dispatched ladders keep
-    the chip busy.  Every compiled kernel must already be warm (run one
+    the device busy.  Every compiled kernel must already be warm (run one
     chunk serially first) — concurrent first-compiles would race the
     jit cache.  Yields one List[bool] of per-proof verdicts per chunk,
     in order."""

@@ -9,7 +9,7 @@ corpus pins (key, m, r) -> ciphertext for regular/alternative x level
 1/2, CRT and recovery decryption, a full threshold transcript (partial
 decryptions + share ZKPs) and a DDLEQ transcript with fixed randomness,
 so kernel optimizations can never silently change outputs
-(VERDICT r1 #6; anchor style: paillier_test.go:52-156,
+(anchor style: paillier_test.go:52-156,
 thresholdkey_test.go:24-135).
 
 Run from the repo root on the CPU backend:

@@ -1,5 +1,5 @@
 """Property tests for the limb-vector big-integer substrate against the
-Python-int oracle (the TPU replacement for libgmp; SURVEY.md section 7
+Python-int oracle (the device replacement for libgmp; SURVEY.md section 7
 layer 1)."""
 
 import random

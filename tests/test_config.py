@@ -66,3 +66,40 @@ def test_threshold_timeout_default():
     set_config(Config(keygen_timeout=7.5))
     gen = ThresholdKeyGenerator(32, 3, 2, random.Random(1))
     assert gen.timeout == 7.5
+
+
+def test_compile_cache_env_set(monkeypatch, tmp_path):
+    from paillier_tpu.config import compile_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert compile_cache_dir() == str(tmp_path)
+
+
+def test_compile_cache_env_unset(monkeypatch):
+    import os
+
+    import paillier_tpu
+    from paillier_tpu.config import compile_cache_dir
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    checkout = os.path.dirname(os.path.dirname(
+        os.path.abspath(paillier_tpu.__file__)))
+    assert compile_cache_dir() == os.path.join(checkout, ".jax_cache")
+
+
+@pytest.mark.parametrize("bits", [512, 1024, 2048])
+@pytest.mark.parametrize("platform", ["cpu", "gpu"])
+def test_use_rns_platform_decision(monkeypatch, platform, bits):
+    """DeviceKey.use_rns is the package's one backend decision: the RNS
+    engine on a non-CPU device for keys >= 1024 bits."""
+    from types import SimpleNamespace
+
+    import jax
+
+    from paillier_tpu.core.keys import DeviceKey
+    monkeypatch.delenv("PAILLIER_TPU_FORCE_RNS", raising=False)
+    set_config(Config(force_rns=None))
+    fake = SimpleNamespace(pk=SimpleNamespace(bits=bits))
+    monkeypatch.setattr(jax, "devices",
+                        lambda *a: [SimpleNamespace(platform=platform)])
+    got = DeviceKey.use_rns(fake)
+    monkeypatch.undo()
+    assert got == (platform == "gpu" and bits >= 1024)

@@ -46,8 +46,7 @@ class TestKeygen:
 def test_device_batched_prime_and_keygen_routing():
     """device_batched_prime finds primes (batched Fermat on device +
     host MR confirm), and keygen can route its prime search through it
-    (the auto path engages for bits >= 2048 without the native runtime;
-    r2 VERDICT #8)."""
+    (the auto path engages for bits >= 2048 without the native runtime)."""
     from paillier_tpu.core.keygen import device_batched_prime
     rng = random.Random(0xD0E1)
     p = device_batched_prime(96, rng, congruent_3_mod_4=True, batch=16)

@@ -48,7 +48,7 @@ class TestDdleq:
         assert verify(pk, ct1, ct2, proof) == [True] * 3
 
     def test_pipeline_prove_verify(self, setup):
-        """The 2-deep chunk pipeline (r5 bench path) yields the same
+        """The 2-deep chunk pipeline (the bench path) yields the same
         verdicts as serial prove+verify, in order."""
         sk, pk, ct1, ct2, a_l, b_l = setup
         jobs = [(ct1, ct2, a_l, b_l, random.Random(1000 + i))

@@ -58,7 +58,7 @@ def test_modinv_gcd_mulmod_parity():
 
 
 def test_modinv_batch_montgomery_trick():
-    """r5 chunked Montgomery batch inversion: parity with pow(-1) for
+    """Chunked Montgomery batch inversion: parity with pow(-1) for
     invertible batches, correct bad-element reporting via the
     per-element fallback, thread-count independence."""
     rng = random.Random(0xBA7C4)

@@ -107,27 +107,41 @@ class TestCli:
 
 class TestRoofline:
     def test_model_math(self):
-        from paillier_tpu.ops.profiling import (CHIPS, RooflineModel,
-                                                encryption_roofline,
+        from paillier_tpu.ops.profiling import (PEAKS, RooflineModel,
                                                 sliding_mults)
         # 2048-bit exponent, window 6: ~2048 squarings + ~292 window
         # multiplies + 32-entry odd table + entry/exit
         assert sliding_mults(2048, 6) == 2048 + 292 + 32 + 2
         m = RooflineModel(mod_bits=4096, exp_bits=2048, k=320, window=6,
-                          chip=CHIPS["v5e"])
+                          peaks=PEAKS["NVIDIA H100 80GB HBM3"])
         assert m.macs_per_mult == 8 * 320 * 320
-        # 320 output lanes pad to 384: 2 extensions x [2k]x[2*384]
+        # 320 output columns pad to 384: 2 extensions x [2k]x[2*384]
         assert m.macs_per_mult_padded == 2 * 640 * 768
-        assert m.overlap_bound() == min(m.mxu_bound(), m.vpu_bound())
-        assert m.serial_bound() < m.overlap_bound()
-        # the v5e MXU ceiling for this config sits right at the 100k
-        # target: the model must reflect that (sanity anchor)
-        assert 80_000 < m.mxu_bound(padded=False) < 120_000
+        assert m.bytes_per_mult == 2 * 640 * 4
+        assert m.bound() == min(m.int8_bound(), m.memory_bound())
+        # H100 int8 ceiling for 2048-bit encryption: 1,979 TOP/s over
+        # 2 * 8k^2 * 2374 ops per element ~= 509k enc/s (sanity anchor)
+        assert 500_000 < m.int8_bound(padded=False) < 520_000
         r = m.report(50_000)
-        assert "measured" in r and "MXU" in r
+        assert "measured" in r and "int8" in r and "H100" in r
 
     def test_encryption_roofline_probe(self):
-        from paillier_tpu.ops.profiling import CHIPS, encryption_roofline
-        m = encryption_roofline(256, chip=CHIPS["v5e"])
+        from paillier_tpu.ops.profiling import PEAKS, encryption_roofline
+        m = encryption_roofline(256, peaks=PEAKS["NVIDIA H100 80GB HBM3"])
         assert m.mod_bits == 512 and m.exp_bits == 256
         assert m.k >= 64 and m.k % 64 == 0
+
+    def test_h100_peaks_row(self):
+        from paillier_tpu.ops.profiling import device_peaks
+        p = device_peaks("NVIDIA H100 80GB HBM3")
+        assert (p.int8_tops, p.hbm_gbps) == (1979.0, 3350.0)
+        assert "data sheet" in p.source
+
+    @pytest.mark.parametrize("kind", ["cpu", "NVIDIA A100-SXM4-80GB", ""])
+    def test_unknown_device_kind_raises(self, kind):
+        from paillier_tpu.ops.profiling import RooflineModel, device_peaks
+        with pytest.raises(ValueError, match="no published peaks"):
+            device_peaks(kind)
+        # the CPU this suite runs on has no row either: no silent default
+        with pytest.raises(ValueError, match="no published peaks"):
+            RooflineModel(mod_bits=512, exp_bits=256, k=64)

@@ -87,7 +87,7 @@ class TestShardedDDLEQ:
     def test_sharded_prove_verify_forced_rns(self, keypair_128, monkeypatch):
         """The sharded DDLEQ path with the RNS engine active (the
         accelerator configuration): the engines must be built eagerly
-        before the shard_map trace (ADVICE r2) and results must match
+        before the shard_map trace and results must match
         the unsharded run bit-exactly."""
         import dataclasses
         from paillier_tpu.core.encrypt import nested_encrypt

@@ -1,6 +1,5 @@
 """RNS (Cox-Rower) engine tests against the Python-int oracle, plus the
-device limb<->residue converters and the fused Pallas modexp kernel
-(interpret mode on CPU)."""
+device limb<->residue converters and the limb-Montgomery ladders."""
 
 import random
 
@@ -10,7 +9,6 @@ import pytest
 
 from paillier_tpu.bigint import host
 from paillier_tpu.bigint import montgomery as mont
-from paillier_tpu.bigint.pallas_kernels import mont_pow_pallas
 from paillier_tpu.bigint.rns import RnsConverter, RnsEngine
 
 R = random.Random(4242)
@@ -105,27 +103,40 @@ class TestConverter:
         assert all(g < engine.spec.M for g in got)
 
 
-class TestPallasInterpret:
-    def test_shared_and_per_element(self):
-        n = host.random_prime(96) * host.random_prime(96)
-        ctx = mont.make_mont_ctx(n)
-        L = ctx.n_limbs
-        xs = [R.randrange(n) for _ in range(8)]
-        X = jnp.asarray(host.ints_to_limbs(xs, L))
-        e = R.getrandbits(100)
-        nd = mont.n_digits_for_bits(100, 4)
-        digs = jnp.asarray(mont.exp_digits(e, 4, nd))
-        got = host.limbs_to_ints(np.asarray(
-            mont_pow_pallas(ctx, X, digs, 4, interpret=True)))
-        assert got == [pow(x, e, n) for x in xs]
+class TestMontLadders:
+    """The limb-Montgomery ladder entry points at edge exponents."""
 
-        es = [R.getrandbits(60) for _ in range(8)]
-        nd = mont.n_digits_for_bits(60, 4)
-        digs = jnp.asarray(np.stack(
-            [mont.exp_digits(ei, 4, nd) for ei in es]))
+    @pytest.fixture(scope="class")
+    def ctx_n(self):
+        n = host.random_prime(96) * host.random_prime(96)
+        return mont.make_mont_ctx(n), n
+
+    @pytest.mark.parametrize("e", [1, 2, 3])
+    def test_pow_digits_edge_exponents(self, ctx_n, e):
+        ctx, n = ctx_n
+        xs = [R.randrange(n) for _ in range(4)]
+        X = jnp.asarray(host.ints_to_limbs(xs, ctx.n_limbs))
+        digs = jnp.asarray(mont.exp_digits(e, 4, 1))
         got = host.limbs_to_ints(np.asarray(
-            mont_pow_pallas(ctx, X, digs, 4, interpret=True)))
-        assert got == [pow(x, ei, n) for x, ei in zip(xs, es)]
+            mont.mont_pow_digits(ctx, X, digs, 4)))
+        assert got == [pow(x, e, n) for x in xs]
+        es = [e, 1, 2, 3]
+        digs = jnp.asarray(np.stack([mont.exp_digits(v, 4, 1) for v in es]))
+        got = host.limbs_to_ints(np.asarray(
+            mont.mont_pow_digits(ctx, X, digs, 4)))
+        assert got == [pow(x, v, n) for x, v in zip(xs, es)]
+
+    @pytest.mark.parametrize("e", [1, 2, 3])
+    def test_pow_fixed_base_edge_exponents(self, ctx_n, e):
+        ctx, n = ctx_n
+        g = R.randrange(2, n)
+        G = jnp.asarray(host.int_to_limbs(g, ctx.n_limbs))
+        es = [e, 0, R.getrandbits(40), (1 << 40) - 1]
+        nd = mont.n_digits_for_bits(40, 4)
+        digs = jnp.asarray(np.stack([mont.exp_digits(v, 4, nd) for v in es]))
+        got = host.limbs_to_ints(np.asarray(
+            mont.mont_pow_fixed_base(ctx, G, digs, 4)))
+        assert got == [pow(g, v, n) for v in es]
 
 
 class TestRnsPipelines:

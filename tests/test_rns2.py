@@ -1,6 +1,6 @@
-"""RNS-v2 engine tests: parity of the int8-MXU Cox-Rower math against
-Python big-int arithmetic (the jnp fallback path runs on CPU; the fused
-Pallas kernel shares the exact same math core, rns2.rns2_mont_mul_pair)."""
+"""RNS-v2 engine tests: parity of the int8 Cox-Rower math against Python
+big-int arithmetic.  The ladders are the same XLA programs on every
+backend, so the CPU runs exactly the math the GPU runs."""
 
 import random
 
@@ -10,7 +10,7 @@ import pytest
 
 from paillier_tpu.bigint import host
 from paillier_tpu.bigint import montgomery as mont
-from paillier_tpu.bigint.rns2 import Rns2Engine, rns2_pow_jnp
+from paillier_tpu.bigint.rns2 import Rns2Engine, rns2_pow
 
 
 @pytest.fixture(scope="module")
@@ -45,7 +45,7 @@ def test_pow_shared_exponent(eng256, window):
     e = random.getrandbits(200)
     nd = mont.n_digits_for_bits(e.bit_length(), window)
     digits = jnp.asarray(mont.exp_digits(e, window, nd))
-    out = rns2_pow_jnp(eng.ctx, eng.encode(xs), digits, window)
+    out = rns2_pow(eng.ctx, eng.encode(xs), digits, window)
     assert eng.decode(out) == [pow(x, e, n) for x in xs]
 
 
@@ -57,7 +57,7 @@ def test_pow_per_element_exponents(eng256):
     nd = mont.n_digits_for_bits(128, window)
     digits = jnp.asarray(
         np.stack([mont.exp_digits(e, window, nd) for e in es]))
-    out = rns2_pow_jnp(eng.ctx, eng.encode(xs), digits, window)
+    out = rns2_pow(eng.ctx, eng.encode(xs), digits, window)
     assert eng.decode(out) == [pow(x, e, n) for x, e in zip(xs, es)]
 
 
@@ -79,7 +79,7 @@ def test_pow_result_exact_in_limb_domain(eng256):
     xs = [random.randrange(n) for _ in range(8)]
     e = random.getrandbits(256)
     nd = mont.n_digits_for_bits(e.bit_length(), window)
-    out = rns2_pow_jnp(eng.ctx, eng.encode(xs),
+    out = rns2_pow(eng.ctx, eng.encode(xs),
                        jnp.asarray(mont.exp_digits(e, window, nd)), window)
     vals = host.limbs_to_ints(np.asarray(eng.to_limbs(out)))
     assert [v % n for v in vals] == [pow(x, e, n) for x in xs]
@@ -114,67 +114,54 @@ def test_engine_dispatch_unified_api():
 
 
 # ---------------------------------------------------------------------------
-# Interpret-mode parity for the production Pallas kernels (VERDICT r1 #3):
-# the exact hardware code paths (grid, BlockSpecs, scratch, SMEM digits)
-# execute in the Pallas interpreter on CPU and must match Python pow.
+# The ladder entry points at edge exponents (1, 2, 3: a single digit, the
+# table's first entries, no squaring-only steps)
 # ---------------------------------------------------------------------------
 
-def test_pallas_modexp_kernel_interpret_shared(eng256):
-    from paillier_tpu.bigint.pallas_rns2 import rns2_pow_pallas
+@pytest.mark.parametrize("e", [1, 2, 3])
+def test_rns2_pow_edge_exponents(eng256, e):
     n, eng = eng256
-    xs = [random.randrange(n) for _ in range(16)]
-    e = random.getrandbits(120)
-    nd = mont.n_digits_for_bits(e.bit_length(), 4)
-    digits = jnp.asarray(mont.exp_digits(e, 4, nd))
-    out = rns2_pow_pallas(eng.ctx, eng.encode(xs), digits, 4, block=8,
-                          interpret=True)
+    xs = [random.randrange(n) for _ in range(4)]
+    shared = jnp.asarray(mont.exp_digits(e, 4, 1))
+    out = rns2_pow(eng.ctx, eng.encode(xs), shared, 4)
+    assert eng.decode(out) == [pow(x, e, n) for x in xs]
+    # per-element digits: each element gets a different small exponent
+    es = [e, 1, 2, 3]
+    per = jnp.asarray(np.stack([mont.exp_digits(v, 4, 1) for v in es]))
+    out = rns2_pow(eng.ctx, eng.encode(xs), per, 4)
+    assert eng.decode(out) == [pow(x, v, n) for x, v in zip(xs, es)]
+
+
+@pytest.mark.parametrize("e", [1, 2, 3])
+def test_rns2_pow_sliding_edge_exponents(eng256, e):
+    from paillier_tpu.bigint.rns2 import (rns2_pow_sliding,
+                                          sliding_window_schedule)
+    n, eng = eng256
+    xs = [random.randrange(n) for _ in range(4)]
+    sched = jnp.asarray(sliding_window_schedule(e, 5))
+    out = rns2_pow_sliding(eng.ctx, eng.encode(xs), sched, 5)
     assert eng.decode(out) == [pow(x, e, n) for x in xs]
 
 
-def test_pallas_modexp_kernel_interpret_per_element(eng256):
-    from paillier_tpu.bigint.pallas_rns2 import rns2_pow_pallas
-    n, eng = eng256
-    xs = [random.randrange(n) for _ in range(8)]
-    es = [random.getrandbits(96) | 1 for _ in range(8)]
-    nd = mont.n_digits_for_bits(96, 4)
-    digits = jnp.asarray(np.stack([mont.exp_digits(e, 4, nd) for e in es]))
-    out = rns2_pow_pallas(eng.ctx, eng.encode(xs), digits, 4, block=8,
-                          interpret=True)
-    assert eng.decode(out) == [pow(x, e, n) for x, e in zip(xs, es)]
-
-
-def test_pallas_sliding_kernel_interpret(eng256):
-    from paillier_tpu.bigint.pallas_rns2 import rns2_pow_sliding_pallas
-    from paillier_tpu.bigint.rns2 import sliding_window_schedule
-    n, eng = eng256
-    xs = [random.randrange(n) for _ in range(16)]
-    for e in (1, 2, 3, random.getrandbits(130) | (1 << 129)):
-        sched = jnp.asarray(sliding_window_schedule(e, 5))
-        out = rns2_pow_sliding_pallas(eng.ctx, eng.encode(xs), sched, 5,
-                                      block=8, interpret=True)
-        assert eng.decode(out) == [pow(x, e, n) for x in xs], e
-
-
-def test_pallas_fixed_base_kernel_interpret(eng256):
-    from paillier_tpu.bigint.pallas_rns2 import rns2_pow_fixed_base_pallas
-    from paillier_tpu.bigint.rns2 import build_fixed_base_table
+@pytest.mark.parametrize("e", [1, 2, 3])
+def test_rns2_pow_fixed_base_edge_exponents(eng256, e):
+    from paillier_tpu.bigint.rns2 import (build_fixed_base_table,
+                                          rns2_pow_fixed_base)
     n, eng = eng256
     base = random.randrange(2, n)
-    es = [random.getrandbits(60) for _ in range(8)]
     nd = mont.n_digits_for_bits(60, 4)
     table = build_fixed_base_table(eng, base, nd, 4)
-    digits = jnp.asarray(np.stack([mont.exp_digits(e, 4, nd) for e in es]))
-    out = rns2_pow_fixed_base_pallas(eng.ctx, table, digits, 4, block=8,
-                                     interpret=True)
-    assert eng.decode(out) == [pow(base, e, n) for e in es]
+    es = [e, 0, random.getrandbits(60), (1 << 60) - 1]
+    digits = jnp.asarray(np.stack([mont.exp_digits(v, 4, nd) for v in es]))
+    out = rns2_pow_fixed_base(eng.ctx, table, digits, 4)
+    assert eng.decode(out) == [pow(base, v, n) for v in es]
 
 
 def test_sliding_fused_final_multiplicand(eng256):
     """The fin operand rides the ladder's exit multiply: x^e * fin mod n
-    (encryption's G^m fusion, r5) — jnp path, pallas interpret path,
-    and the -2 skip sentinel all bit-exact vs Python pow."""
-    from paillier_tpu.bigint.pallas_rns2 import rns2_pow_sliding_pallas
-    from paillier_tpu.bigint.rns2 import (rns2_pow_sliding_jnp,
+    (encryption's G^m fusion) — plain and with the -2 skip sentinel,
+    bit-exact vs Python pow."""
+    from paillier_tpu.bigint.rns2 import (rns2_pow_sliding,
                                           sliding_window_schedule)
     n, eng = eng256
     xs = [random.randrange(n) for _ in range(8)]
@@ -183,34 +170,12 @@ def test_sliding_fused_final_multiplicand(eng256):
     e = random.getrandbits(150) | (1 << 149)
     want = [pow(x, e, n) * f % n for x, f in zip(xs, fs)]
     sched = jnp.asarray(sliding_window_schedule(e, 5))
-    out = rns2_pow_sliding_jnp(eng.ctx, eng.encode(xs), sched, 5, fin=fin)
-    assert eng.decode(out) == want
-    out = rns2_pow_sliding_pallas(eng.ctx, eng.encode(xs), sched, 5,
-                                  block=8, interpret=True, fin=fin)
+    out = rns2_pow_sliding(eng.ctx, eng.encode(xs), sched, 5, fin=fin)
     assert eng.decode(out) == want
     # -2 pad sentinel: appended skip steps must not change the result
     sched_pad = jnp.concatenate([sched, jnp.full((3,), -2, jnp.int32)])
-    out = rns2_pow_sliding_jnp(eng.ctx, eng.encode(xs), sched_pad, 5,
-                               fin=fin)
+    out = rns2_pow_sliding(eng.ctx, eng.encode(xs), sched_pad, 5, fin=fin)
     assert eng.decode(out) == want
-    out = rns2_pow_sliding_pallas(eng.ctx, eng.encode(xs), sched_pad, 5,
-                                  block=8, interpret=True, fin=fin)
-    assert eng.decode(out) == want
-
-
-def test_sliding_nopad_interpret(eng256):
-    """nopad ext layout (unpadded [2k,2k] matrices + pltpu.roll hi-half
-    extraction) is bit-exact with the padded kernel (VERDICT r4 #1b)."""
-    from paillier_tpu.bigint.pallas_rns2 import rns2_pow_sliding_pallas
-    from paillier_tpu.bigint.rns2 import sliding_window_schedule
-    n, eng = eng256
-    assert eng.ctx.k % 128, "spec must exercise the non-aligned case"
-    xs = [random.randrange(n) for _ in range(8)]
-    e = random.getrandbits(90) | (1 << 89)
-    sched = jnp.asarray(sliding_window_schedule(e, 5))
-    out = rns2_pow_sliding_pallas(eng.ctx, eng.encode(xs), sched, 5,
-                                  block=8, interpret=True, nopad=True)
-    assert eng.decode(out) == [pow(x, e, n) for x in xs]
 
 
 def test_one_plus_mul_residues(eng256):
@@ -254,14 +219,14 @@ def test_encrypt_fused_gm_parity(eng256):
 
 
 def test_sliding_schedule_and_jnp_parity(eng256):
-    from paillier_tpu.bigint.rns2 import (rns2_pow_sliding_jnp,
+    from paillier_tpu.bigint.rns2 import (rns2_pow_sliding,
                                           sliding_window_schedule)
     n, eng = eng256
     xs = [random.randrange(n) for _ in range(8)]
     for e in (1, 5, 64, random.getrandbits(200)):
         for w in (4, 6):
             sched = jnp.asarray(sliding_window_schedule(e, w))
-            out = rns2_pow_sliding_jnp(eng.ctx, eng.encode(xs), sched, w)
+            out = rns2_pow_sliding(eng.ctx, eng.encode(xs), sched, w)
             assert eng.decode(out) == [pow(x, e, n) for x in xs], (e, w)
 
 
@@ -280,3 +245,33 @@ def test_wide_spec_k512_overflow_guard():
     e = 0x10001
     out = eng.pow_shared(rx, e, window=4)
     assert eng.decode(out) == [pow(x, e, n) for x in xs]
+
+
+@pytest.mark.parametrize("mod_bits", [4096, 6144, 8192])
+def test_cox_alpha_bound_holds_in_any_order(mod_bits):
+    """The cox alpha f32 error bound (rns2._cox_sum_error) dominates the
+    error of the worst digits summed in several orders, and the spec's
+    COX_EPS margin holds at the widths the main path builds (k=320: 2048-
+    bit keys; 512: level 2; 640: 4096-bit keys)."""
+    from fractions import Fraction
+
+    from paillier_tpu.bigint.rns2 import COX_EPS, Rns2Spec, _cox_sum_error
+    spec = Rns2Spec((1 << (mod_bits - 1)) | 1)
+    b2 = np.asarray(spec.b2, dtype=np.int64)
+    err = _cox_sum_error(spec.b2)
+    drift = spec.k * 256 * spec.N / spec.M2
+    assert drift + err < COX_EPS and 0.125 + drift + err + COX_EPS < 1
+    rng = np.random.default_rng(mod_bits)
+    inv = (1.0 / b2.astype(np.float64)).astype(np.float32)
+    for trial in range(4):
+        sg = rng.integers(-(1 << 14) + 1, 1 << 14, b2.size)
+        exact = sum(Fraction(int(s), int(m)) for s, m in zip(sg, b2))
+        terms = sg.astype(np.float32) * inv
+        for order in (np.arange(b2.size), np.argsort(terms),
+                      np.argsort(-np.abs(terms))):
+            acc = np.float32(0)
+            for t in terms[order]:
+                acc = np.float32(acc + t)
+            assert abs(float(acc + np.float32(COX_EPS)) - COX_EPS
+                       - float(exact)) < err
+        assert abs(float(np.sum(terms)) - float(exact)) < err

@@ -206,8 +206,8 @@ class TestEndToEnd:
         assert combine(tpk, shares) == [32]
 
     def test_partial_decrypt_all_matches_per_server(self, tkeys, rng):
-        """The r5 stacked one-dispatch partial path is bit-identical to
-        t separate partial_decrypt calls (VERDICT r4 #3)."""
+        """The stacked one-dispatch partial path is bit-identical to
+        t separate partial_decrypt calls."""
         import numpy as np
         from paillier_tpu.threshold.decrypt import partial_decrypt_all
         tpk = tkeys[0].public()

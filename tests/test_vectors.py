@@ -9,7 +9,7 @@ Expected values for the encryption/decryption/threshold vectors were
 computed with pure-Python big-int formulas transcribed from the Go
 reference (see scripts/gen_vectors.py) — if a kernel optimization
 changes any output bit, these tests fail even though the library's
-internal oracles would have drifted along with it (VERDICT r1 #6).
+internal oracles would have drifted along with it.
 The DDLEQ transcript is a *self-regression freeze*: it was generated by
 the library with fixed randomness (its relation and challenge bits are
 checked against independent pure-int formulas in gen_vectors.py, but
